@@ -1,16 +1,16 @@
-"""raytpu — a TPU-native differentiable raytracer + rasterizer framework.
+"""raytpu — a differentiable raytracer + rasterizer framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
+A from-scratch JAX/XLA re-design of the capabilities of the reference
 C++ project ``ArchDD/CPP-Raytracer-Rasterizer`` (CPU raytracer, CPU scanline
 rasterizer, Lab0 starfield; see /root/reference). This is NOT a port: the
 reference is triangle-major, scalar and OpenMP-threaded; raytpu is pixel-major,
 batched and SPMD over a `jax.sharding.Mesh`.
 
 Layer map (reference -> raytpu):
-  L0 math (vendored GLM)            -> jax.numpy / Pallas primitives
+  L0 math (vendored GLM)            -> jax.numpy primitives
   L1 platform/framebuffer (SDL 1.2) -> raytpu.core.image (BMP/PNG IO)
   L2 scene (TestModel.h, LoadSTL)   -> raytpu.core.{types,cornell,stl}
-  L3 render kernels                 -> raytpu.ops (jnp) + raytpu.kernels (Pallas)
+  L3 render kernels                 -> raytpu.ops + raytpu.render (jnp/lax)
   L4 app driver / key toggles       -> raytpu.cli + RenderConfig dataclass
   L5 (new) sharding/multi-host      -> raytpu.parallel  (ref analog: OpenMP pragmas)
 

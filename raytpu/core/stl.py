@@ -25,6 +25,34 @@ DEFAULT_SCALE = 0.05  # `LoadSTL.cpp:19`
 REFERENCE_MODEL = "/root/reference/rasteriser/Source/enemy1.stl"
 
 
+def morton_order(v0, v1, v2, bits: int = 10) -> np.ndarray:
+    """Spatial sort permutation by centroid Morton code (numpy, load-time).
+
+    Makes streaming triangle chunks spatially tight. Stable sort keeps the
+    reference last-wins tie-break deterministic for equal codes.
+    """
+    c = (np.asarray(v0) + np.asarray(v1) + np.asarray(v2)) / 3.0
+    lo = c.min(axis=0)
+    span = np.maximum(c.max(axis=0) - lo, 1e-12)
+    q = np.minimum(
+        ((c - lo) / span * (2**bits - 1)).astype(np.uint64), 2**bits - 1
+    )
+
+    def spread(x):
+        x &= np.uint64(0x3FF)
+        x = (x | (x << np.uint64(16))) & np.uint64(0x030000FF)
+        x = (x | (x << np.uint64(8))) & np.uint64(0x0300F00F)
+        x = (x | (x << np.uint64(4))) & np.uint64(0x030C30C3)
+        x = (x | (x << np.uint64(2))) & np.uint64(0x09249249)
+        return x
+
+    code = (
+        spread(q[:, 0]) | (spread(q[:, 1]) << np.uint64(1))
+        | (spread(q[:, 2]) << np.uint64(2))
+    )
+    return np.argsort(code, kind="stable")
+
+
 def parse_ascii_stl(text: str) -> np.ndarray:
     """Parse ASCII STL text into a (T, 3, 3) float32 vertex array.
 
@@ -66,9 +94,8 @@ def load_stl(path: str, scale: float = DEFAULT_SCALE,
 
     reorder: None keeps file order (bit-parity with the reference's
     last-wins tie-break depends on it); "morton" sorts triangles by
-    centroid Morton code so the chunk-culling fast path
-    (kernels.intersect_pallas.intersect_pallas_culled) gets spatially
-    tight chunks.
+    centroid Morton code so streaming triangle chunks are spatially
+    tight.
     """
     from raytpu import native
 
@@ -81,8 +108,6 @@ def load_stl(path: str, scale: float = DEFAULT_SCALE,
             tris = parse_ascii_stl(f.read())
     tris = tris * np.float32(-scale)
     if reorder == "morton":
-        from raytpu.kernels.cull import morton_order
-
         perm = morton_order(tris[:, 0], tris[:, 1], tris[:, 2])
         tris = tris[perm]
     elif reorder is not None:

@@ -277,9 +277,9 @@ class Lights:
 
         The reference light bank is a fixed 32-slot array scanned via
         ``NUM_LIGHTS`` (`raytracer.cpp:47-48`) — in raytpu the per-light
-        shading loop and the fused multi-source shadow kernel unroll over
-        ``capacity``, so a capacity-32 bank with one active light would pay
-        32x the shading and 33 kernel phases. Inactive slots contribute
+        shading loop and the shadow sweeps unroll over ``capacity``, so a
+        capacity-32 bank with one active light would pay 32x the shading
+        and 32 shadow sweeps. Inactive slots contribute
         exactly zero in both 'clean' and 'parity' modes (the parity run-on
         accumulation only folds in ``mask_k * ...`` terms), and compaction
         preserves the relative order of active slots, so results are
@@ -343,7 +343,7 @@ class RenderConfig:
       ambient:             indirect light 0.2 (`raytracer.cpp:81`,
                            `rasteriser.cpp:47`).
       tri_chunk:           triangles streamed per step in the intersection
-                           loop (memory/VMEM tiling knob, not semantics).
+                           loop (memory knob, not semantics).
       raster_tri_chunk:    triangles per step in the rasterizer's pixel-major
                            depth resolve (materializes a (chunk, H, W) zinv
                            volume — keep small).
@@ -365,27 +365,9 @@ class RenderConfig:
     raster_tri_chunk: int = 64
     soft_edge_sharpness: float = 100.0
     soft_z_sharpness: float = 100.0
-    # None = auto: fused Pallas kernels on TPU, jnp elsewhere (Pallas runs
-    # interpreted off-TPU — correct but slow, so tests opt in explicitly).
-    use_pallas: bool | None = None
-    # Route the headline config through the single-launch megakernel
-    # (kernels/render_fused.py). Round 4 measured the (1, tile)-row form
-    # LOSING to the split design (per-ray shading on one sublane of each
-    # vreg is latency-bound); round 5's (8, tile/8) re-blocking
-    # (bench/megakernel_lab6.py) runs the same math at full vreg density
-    # and WINS both directions — fwd 0.197 vs 0.317 ms, fwd+bwd 0.392
-    # vs 0.479 ms at 512^2 — so it is now the default for the eligible
-    # config (one light, hard shadows, one sub-ray, single chunk).
-    megakernel: bool = True
 
     def replace(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)
-
-    @property
-    def pallas_enabled(self) -> bool:
-        if self.use_pallas is None:
-            return jax.default_backend() == "tpu"
-        return self.use_pallas
 
 
 def as_f32(x) -> np.ndarray:

@@ -2,7 +2,7 @@
 //
 // The reference implements its loaders/IO in C++ (LoadSTL.cpp's
 // line-by-line parser, SDL's BMP writer); raytpu keeps the same split:
-// the TPU compute path is JAX/Pallas, and the host runtime around it is
+// the accelerator compute path is JAX, and the host runtime around it is
 // native. This library provides a single-pass ASCII STL parser (~50x the
 // python loader on the 9k-triangle reference model) and a BMP codec,
 // exposed as a C ABI for ctypes (no pybind11 in the image).

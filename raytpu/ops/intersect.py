@@ -1,6 +1,6 @@
 """Batched ray-triangle intersection (jnp / XLA path).
 
-TPU-first reformulation of the reference's scalar Cramer's-rule loop
+Data-parallel reformulation of the reference's scalar Cramer's-rule loop
 (`raytracer/Source/raytracer.cpp:202-257`). Key observation: for a bundle of
 rays sharing one origin ``start`` (true for both reference ray types —
 primary rays start at the camera `raytracer.cpp:580`, shadow rays start at
@@ -15,11 +15,10 @@ constant vector:
   e1bd  = dot(cross(e1, b), -d)          =     d . (b x e1)
   e1e2b = dot(cross(e1,e2),  b)          =     n . b          (ray-independent)
 
-so intersecting R rays against T triangles is ONE matmul
-``dirs (R,3) @ M^T (3,3T)`` plus elementwise math — MXU/VPU-native with no
-(R, T, 3) intermediates. Triangles stream through a `lax.scan` in chunks with
-a running closest-hit reduction, which keeps memory at O(R * chunk) and maps
-directly onto the Pallas kernel in raytpu.kernels.
+so intersecting R rays against T triangles is ONE K=3 contraction
+``dirs (R,3) . M^T (3,3T)`` plus elementwise math, with no (R, T, 3)
+intermediates. Triangles stream through a `lax.scan` in chunks with a
+running closest-hit reduction, which keeps memory at O(R * chunk).
 
 The closest-hit metric is the Euclidean distance ``|start - pos| = t * |d|``
 (`raytracer.cpp:241-242`); since ``|d|`` is constant per ray, reducing by t
@@ -85,11 +84,9 @@ def _chunk_hits(dirs: jax.Array, m: jax.Array, k0: jax.Array,
     with t = F32MAX where the chunk has no valid hit.
     """
     C = m.shape[0]
-    # K=3 "matmul" as broadcast-FMA outer products: (R,1)x(1,C). On TPU a
-    # HIGHEST-precision dot_general runs the six-pass f32 MXU emulation
-    # with >97% padding at K=3 — the VPU form is ~2x faster end-to-end and
-    # exact f32. The Pallas kernel (raytpu.kernels.intersect_pallas) uses
-    # the IDENTICAL formulation so the two paths stay bit-equal.
+    # K=3 contraction as broadcast-FMA outer products: (R,1)x(1,C). Exact
+    # f32 on every backend (no reduced-precision matmul unit is involved)
+    # and XLA fuses it with the hit test and the argmin below.
     dn = (
         dirs[:, 0:1] * m[None, :, 0, 0] + dirs[:, 1:2] * m[None, :, 0, 1]
         + dirs[:, 2:3] * m[None, :, 0, 2]
@@ -106,8 +103,7 @@ def _chunk_hits(dirs: jax.Array, m: jax.Array, k0: jax.Array,
     # Grad-safe division: a zero denominator (ray parallel to the plane)
     # fails the hit test in the reference via inf/NaN comparisons; divide by
     # a safe value and mask explicitly so reverse-mode AD stays NaN-free.
-    # One reciprocal + three multiplies, matching the Pallas kernel bit-
-    # for-bit (and cheaper than three divides).
+    # One reciprocal + three multiplies (cheaper than three divides).
     nonpar = denom != 0.0
     denom_safe = jnp.where(nonpar, denom, 1.0)
     recip = 1.0 / denom_safe
@@ -128,7 +124,7 @@ def _chunk_hits(dirs: jax.Array, m: jax.Array, k0: jax.Array,
 
 
 def intersect(dirs: jax.Array, consts: TriConstants,
-              tri_chunk: int = 512, use_pallas: bool = False) -> Hits:
+              tri_chunk: int = 512) -> Hits:
     """Closest intersection of R rays against all triangles.
 
     Streams triangles in chunks of ``tri_chunk`` via `lax.scan`, carrying a
@@ -136,11 +132,6 @@ def intersect(dirs: jax.Array, consts: TriConstants,
     size (the 9k-triangle STL path needs this; the 32-triangle Cornell box
     takes the single-chunk fast path).
     """
-    if use_pallas:
-        from raytpu.kernels.intersect_pallas import intersect_pallas
-
-        return intersect_pallas(dirs, consts, tri_chunk=tri_chunk)
-
     T = consts.m.shape[0]
     R = dirs.shape[0]
 
@@ -189,18 +180,17 @@ def intersect(dirs: jax.Array, consts: TriConstants,
 
 
 def intersect_scene(start: jax.Array, dirs: jax.Array, scene: Scene,
-                    tri_chunk: int = 512, use_pallas: bool = False) -> Hits:
+                    tri_chunk: int = 512) -> Hits:
     """Convenience wrapper: constants + intersect in one call."""
-    return intersect(dirs, tri_constants(scene, start),
-                     tri_chunk=tri_chunk, use_pallas=use_pallas)
+    return intersect(dirs, tri_constants(scene, start), tri_chunk=tri_chunk)
 
 
 def one_hot_idx(idx: jax.Array, T: int) -> jax.Array:
     """(R,) indices -> (R, T) f32 one-hot (clamped; callers mask misses).
 
-    On TPU, gathers/scatters over a small table serialize badly in the
-    backward pass; expressing gather as one_hot @ table turns both
-    directions into MXU matmuls. Use only for small T (memory is R*T).
+    Expressing a gather over a small table as one_hot @ table turns the
+    backward pass into a matmul instead of a scatter-add. Use only for
+    small T (memory is R*T).
     """
     safe = jnp.maximum(idx, 0)
     return (safe[:, None] == jnp.arange(T, dtype=idx.dtype)[None, :]).astype(

@@ -1,6 +1,6 @@
 """Pixel-major rasterization ops (jnp / XLA path).
 
-TPU-first inversion of the reference's triangle-major scanline pipeline
+Data-parallel inversion of the reference's triangle-major scanline pipeline
 (`rasteriser/Source/rasteriser.cpp:461-768`): instead of walking rows and
 Bresenham-filling pixels per triangle (with its default-off racy OpenMP
 triangle loop, `rasteriser.cpp:22,467-479`), raytpu computes, for every
@@ -90,8 +90,8 @@ def vertex_stage(scene: Scene, camera: Camera,
     """Batched VertexShader: one matmul over all 3T vertices."""
     rot = camera.rotation()
     verts = jnp.stack([scene.v0, scene.v1, scene.v2], axis=1)  # (T, 3, 3)
-    # precision=HIGHEST: TPU matmuls default to bf16, which is a 1e-3-level
-    # error on vertex positions — far above parity tolerance.
+    # precision=HIGHEST: a reduced-precision f32 matmul (TF32 on GPUs) is a
+    # 1e-3-level error on vertex positions — far above parity tolerance.
     pos = jnp.matmul(
         verts - camera.pos, rot, precision=jax.lax.Precision.HIGHEST
     )  # (v - C) * R  (`:535`)
@@ -131,7 +131,7 @@ def cull_mask(scene: Scene, camera: Camera, cfg: RenderConfig) -> jax.Array:
         b = jnp.array([0.0, 1.0, 0.0]) * (h / 2.0) + jnp.array(
             [0.0, 0.0, 1.0]
         ) * camera.focal
-        cy = jnp.dot(t, b) / (
+        cy = jnp.dot(t, b, precision=jax.lax.Precision.HIGHEST) / (
             jnp.linalg.norm(t) * jnp.linalg.norm(b)
         )
         rfovy = jnp.arccos(cy)

@@ -29,13 +29,23 @@ from raytpu.core.types import Lights, RenderConfig, Scene
 from raytpu.ops.intersect import intersect_scene
 
 
+def shadow_sources(lights: Lights, cfg: RenderConfig) -> jax.Array:
+    """All shadow-source positions, (capacity * samples, 3), in the
+    (light-major, sample-minor) order direct_light's occlusion_rows and
+    the soft shadow sweep use: the jittered positions with soft shadows
+    (`raytracer.cpp:286`), the light positions otherwise (`:290`)."""
+    n_s = cfg.soft_shadow_samples
+    if n_s > 1:
+        return lights.jitter[:, :n_s].reshape(-1, 3)
+    return lights.position
+
+
 def direct_light(
     hit_pos: jax.Array,
     hit_idx: jax.Array,
     scene: Scene,
     lights: Lights,
     cfg: RenderConfig,
-    occlusion_fn=None,
     n_dir: jax.Array | None = None,
     occlusion_rows: jax.Array | None = None,
 ) -> jax.Array:
@@ -50,18 +60,10 @@ def direct_light(
               direct term (`raytracer.cpp:325-326` then `:584-588`).
       clean:  ``p * (direct + ambient)``.
 
-    occlusion_fn: optional override of the shadow test with signature
-      (light_position (3,), delta (R, 3), r (R,)) -> occluded (R,) bool,
-      where delta = hit_pos - light_position (the unnormalized shadow-ray
-      direction; an intersection at ray parameter t < 0.99 occludes).
-      Default traces the full scene; the model-sharded path supplies a
-      triangle-block tracer merged over the model axis
-      (raytpu.parallel.render).
     occlusion_rows: optional (capacity * samples, R) precomputed occlusion
-      bits in (light-major, sample-minor) source order — the output of the
-      fused multi-source Pallas kernel
-      (raytpu.kernels.intersect_pallas.closest_hit_occluded_multi).
-      Takes precedence over occlusion_fn.
+      bits in (light-major, sample-minor) source order — the model-sharded
+      path's merged shadow test (raytpu.parallel.render). Default traces
+      the full scene.
     """
     samples = cfg.soft_shadow_samples
     if n_dir is None:
@@ -102,20 +104,16 @@ def direct_light(
             # Shadow ray from the light toward the surface (`:307-315`).
             if occlusion_rows is not None:
                 occluded = occlusion_rows[k * samples + s]
-            elif occlusion_fn is None:
+            else:
                 # Trace with the UNNORMALIZED direction delta = pos - light:
                 # the hit tests are scale-invariant in the direction and the
                 # ray parameter becomes a fraction of the light distance, so
                 # the reference's `distance < 0.99 * r` occlusion test
                 # (`raytracer.cpp:310-315`) is simply t < 0.99 — no per-ray
-                # normalization and a constant threshold. The fused Pallas
-                # kernel computes the identical test in-kernel.
+                # normalization and a constant threshold.
                 sh = intersect_scene(position, delta, scene,
-                                     tri_chunk=cfg.tri_chunk,
-                                     use_pallas=cfg.pallas_enabled)
+                                     tri_chunk=cfg.tri_chunk)
                 occluded = sh.hit & (sh.t < jnp.float32(0.99))
-            else:
-                occluded = occlusion_fn(position, delta, r)
             D = jnp.where(occluded[:, None], 0.0, D)
             light_sum = light_sum + D
 

@@ -4,7 +4,7 @@ Re-derives `raytracer/Source/raytracer.cpp` math bit-for-bit in float32,
 vectorized over pixels but looping triangles in the reference's order so the
 "closest" tie-breaking (`closestIntersection.distance >= distance`,
 `raytracer.cpp:243`) matches exactly. This oracle is the regression anchor
-for every TPU path — it is deliberately slow and simple.
+for every JAX path — it is deliberately slow and simple.
 
 Reproduced quirks (see SURVEY.md §3.1):
   * Double albedo on the direct term: DirectLight returns ``result2 * p``

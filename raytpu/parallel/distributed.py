@@ -2,11 +2,11 @@
 
 Reference analog: the process-level "cluster init" is the OpenMP thread
 probe in `raytracer/Source/raytracer.cpp:118-136` — discover how much
-parallelism exists, then configure the run to use it. The TPU-native
+parallelism exists, then configure the run to use it. The JAX
 equivalent is `jax.distributed.initialize()`: after it, `jax.devices()`
-spans every host in the slice and the existing ('data', 'model') mesh code
-(raytpu.parallel.mesh) shards over ICI within a host and DCN across hosts
-with NO other changes — the same shard_map renderers run unmodified.
+spans every host and the existing ('data', 'model') mesh code
+(raytpu.parallel.mesh) shards over the devices of all hosts with NO
+other changes — the same shard_map renderers run unmodified.
 
 Usage (one call per process, before device work):
 
@@ -19,10 +19,10 @@ Usage (one call per process, before device work):
 Resolution order for each field: explicit argument, then RAYTPU_* /
 standard env (RAYTPU_COORDINATOR / JAX_COORDINATOR_ADDRESS,
 RAYTPU_NUM_PROCESSES, RAYTPU_PROCESS_ID), then JAX's own auto-detection
-(TPU pod metadata, SLURM, OpenMPI) when the environment clearly is
+(SLURM, OpenMPI) when the environment clearly is
 multi-host, else a single-process no-op. The degenerate explicit
 `num_processes=1` call DOES bring up the coordinator service locally —
-the same code path a pod run takes, exercised by tests/test_distributed.py
+the same code path a cluster run takes, exercised by tests/test_distributed.py
 without a cluster.
 """
 
@@ -54,8 +54,6 @@ _STATE: DistributedState | None = None
 
 # Env markers that indicate a real multi-host launch JAX can auto-detect.
 _AUTODETECT_MARKERS = (
-    "TPU_WORKER_HOSTNAMES",       # Cloud TPU pod
-    "MEGASCALE_COORDINATOR_ADDRESS",
     "SLURM_JOB_ID",
     "OMPI_COMM_WORLD_SIZE",
 )
@@ -146,7 +144,7 @@ def init_distributed(
         )
     else:
         # Multi-host markers present: let JAX's cluster plugins resolve
-        # coordinator/rank (Cloud TPU pod metadata, SLURM, OpenMPI).
+        # coordinator/rank (SLURM, OpenMPI).
         jax.distributed.initialize(local_device_ids=local_device_ids)
 
     _STATE = DistributedState(

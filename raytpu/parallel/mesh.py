@@ -2,7 +2,7 @@
 
 The reference's entire "distributed backend" is OpenMP ``parallel for`` over
 image rows (`raytracer/Source/raytracer.cpp:557,617`; SURVEY.md §2.5). The
-TPU-native replacement is a `jax.sharding.Mesh` with two named axes:
+JAX replacement is a `jax.sharding.Mesh` with two named axes:
 
   data  — image rows / ray tiles (the OpenMP-rows analog; pure data
           parallel, scales with pixel count).
@@ -15,8 +15,8 @@ sequence axis, no experts (SURVEY.md §2.5 "absent"). The scaling axes of a
 renderer are pixels and triangles, and both are covered here.
 
 Multi-host: `jax.distributed.initialize()` before mesh construction makes
-`jax.devices()` span hosts; data-axis sharding then rides ICI within a host
-and DCN across hosts, with gradient psums overlapped by XLA.
+`jax.devices()` span hosts; the same mesh code then shards over the
+devices of every host, with gradient psums scheduled by XLA.
 """
 
 from __future__ import annotations

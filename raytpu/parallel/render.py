@@ -1,4 +1,4 @@
-"""Sharded rendering + training step (shard_map over a TPU mesh).
+"""Sharded rendering + training step (shard_map over a device mesh).
 
 SPMD re-design of the reference's OpenMP row loop (`raytracer.cpp:557`;
 SURVEY.md §5.8):
@@ -9,23 +9,17 @@ SURVEY.md §5.8):
   * triangles are sharded over the 'model' axis — each device intersects
     its triangle block, and the global closest hit is merged with an
     `all_gather` over the axis (the reduction analog of the reference's
-    per-triangle loop); shadow occlusion distances merge with `pmin`;
+    per-triangle loop); shadow occlusion bits merge with an any-reduce;
   * scene attribute arrays stay replicated (they are tiny next to the
     per-ray work), so winner gathers are local;
   * the training loss is `psum`'d over 'data' and `pmean`'d over 'model',
     and `jax.grad` through the shard_map produces replicated parameter
-    gradients with the cross-device reductions inserted by JAX. The psum
-    placement is DEMONSTRATED, not assumed (BASELINE config 5,
-    bench/OVERLAP.md + tests/test_overlap_schedule.py): on a scheduled
-    v5e:2x4 module the gradient psum compiles to ONE combined 1.57 KB
-    all-reduce issued one instruction after its last producer, a
-    per-leaf restructure is rejected by ring-latency arithmetic, and
-    the scheduler demonstrably overlaps the collectives that have
-    slack.
+    gradients with the cross-device reductions inserted by JAX.
 
-DoF is intentionally not part of the sharded step (its 8x8 window would
-need a halo exchange across row shards; it is a post-process — apply it
-after gathering the image if needed).
+Each block runs the single-device math (raytpu.ops, raytpu.render.soft)
+on its rows and triangle block; only the merges live here. DoF runs on
+the row-sharded image with a halo exchange between neighbouring row
+shards (dof_block).
 """
 
 from __future__ import annotations
@@ -37,14 +31,11 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-try:  # jax >= 0.6 exposes shard_map at top level
-    from jax import shard_map
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from raytpu.core.types import Camera, Lights, RenderConfig, Scene
-from raytpu.ops.intersect import TriConstants, intersect, tri_constants
-from raytpu.ops.shade import composite, direct_light
+from raytpu.ops.intersect import intersect, tri_constants
+from raytpu.ops.shade import composite, direct_light, shadow_sources
 from raytpu.parallel.mesh import DATA_AXIS, MODEL_AXIS
 
 _F32MAX = 3.4028235e38  # Python float; see ops/raster.py note
@@ -72,29 +63,15 @@ def _scene_block(scene: Scene, axis_name: str) -> tuple[Scene, jax.Array]:
 
 
 def _merged_intersect(start, dirs, block: Scene, base, cfg: RenderConfig,
-                      axis_name: str, image_hw: tuple | None = None):
+                      axis_name: str):
     """Closest hit against the FULL scene from per-shard triangle blocks.
 
     Local closest hits (t, global idx) are all_gathered over the model axis
     and merged in ascending block order with the reference's
     last-wins-on-ties rule (`raytracer.cpp:243`).
     Returns (t, idx, hit) with t = ray parameter.
-
-    image_hw: (rows, W) of this shard's pixel block — enables chunk
-    culling (kernels.cull) on multi-chunk (STL-scale) triangle blocks.
     """
-    if cfg.pallas_enabled and block.num_triangles > 128:
-        from raytpu.kernels.intersect_pallas import intersect_pallas_culled
-
-        h = intersect_pallas_culled(
-            dirs, tri_constants(block, start), start,
-            block.v0, block.v1, block.v2,
-            tri_chunk=cfg.tri_chunk, image_hw=image_hw,
-        )
-    else:
-        h = intersect(dirs, tri_constants(block, start),
-                      tri_chunk=cfg.tri_chunk,
-                      use_pallas=cfg.pallas_enabled)
+    h = intersect(dirs, tri_constants(block, start), tri_chunk=cfg.tri_chunk)
     t_local = jnp.where(h.hit, h.t, _F32MAX)
     idx_local = jnp.where(h.hit, h.idx + base, -1)
     ts = jax.lax.all_gather(t_local, axis_name)      # (nm, R)
@@ -120,52 +97,23 @@ def _block_grid(cfg: RenderConfig, y0, rows: int):
     return xs.reshape(-1), ys.reshape(-1)
 
 
-def _shadow_sources(lights: Lights, cfg: RenderConfig) -> jax.Array:
-    """All shadow-source positions, (capacity * samples, 3), in the
-    (light-major, sample-minor) order ops/shade.py::direct_light expects."""
-    n_s = cfg.soft_shadow_samples
-    if n_s > 1:
-        return lights.jitter[:, :n_s].reshape(-1, 3)
-    return lights.position
-
-
 def _merged_occlusion_rows(pos, block: Scene, src_pos, cfg: RenderConfig,
-                           axis_name: str,
-                           image_hw: tuple | None = None) -> jax.Array:
+                           axis_name: str) -> jax.Array:
     """(S, R) occlusion bits against the FULL scene from per-shard blocks.
 
-    Each device any-hit-tests its triangle block for every shadow source
-    (one multi-source Pallas launch on TPU; per-source jnp sweeps
-    elsewhere), then the global bit is the any-reduce over the model axis
+    Each device any-hit-tests its triangle block for every shadow source,
+    then the global bit is the any-reduce over the model axis
     (all_gather + max — pmax has no JAX differentiation rule and this
     sits inside the training step's backward even though the boolean
     carries no gradient).
     """
-    consts_src = jax.vmap(lambda o: tri_constants(block, o))(src_pos)
-    if cfg.pallas_enabled:
-        from raytpu.kernels.intersect_pallas import occlusion_multi_pallas
-
-        occ_local = occlusion_multi_pallas(
-            pos, consts_src, src_pos, block.active,
-            tri_chunk=cfg.tri_chunk,
-            scene_geom=(
-                (block.v0, block.v1, block.v2)
-                if block.num_triangles > 128 else None
-            ),
-            image_hw=image_hw,
-        )
-    else:
-        rows = []
-        for s in range(src_pos.shape[0]):
-            delta = pos - src_pos[s][None, :]
-            sh = intersect(
-                delta,
-                TriConstants(m=consts_src.m[s], k0=consts_src.k0[s],
-                             valid=block.active),
-                tri_chunk=cfg.tri_chunk, use_pallas=False,
-            )
-            rows.append(sh.hit & (sh.t < jnp.float32(0.99)))
-        occ_local = jnp.stack(rows, axis=0)
+    rows = []
+    for s in range(src_pos.shape[0]):
+        delta = pos - src_pos[s][None, :]
+        sh = intersect(delta, tri_constants(block, src_pos[s]),
+                       tri_chunk=cfg.tri_chunk)
+        rows.append(sh.hit & (sh.t < jnp.float32(0.99)))
+    occ_local = jnp.stack(rows, axis=0)
     gathered = jax.lax.all_gather(
         occ_local.astype(jnp.int32), axis_name
     )  # (nm, S, R)
@@ -187,7 +135,7 @@ def render_block(scene: Scene, camera: Camera, lights: Lights,
 
     xs, ys = _block_grid(cfg, y0, rows)
     block, base = _scene_block(scene, MODEL_AXIS)
-    src_pos = _shadow_sources(lights, cfg)
+    src_pos = shadow_sources(lights, cfg)
 
     offsets = _subpixel_offsets(cfg)
     accum = jnp.zeros((xs.shape[0], 3), jnp.float32)
@@ -196,7 +144,6 @@ def render_block(scene: Scene, camera: Camera, lights: Lights,
         dirs = camera_ray_dirs(xs + dx, ys + dy, camera, cfg)
         t, idx, hit = _merged_intersect(
             camera.pos, dirs, block, base, cfg, MODEL_AXIS,
-            image_hw=(rows, cfg.width),
         )
         t_safe = jnp.where(hit, t, 0.0)
         pos = camera.pos[None, :] + t_safe[:, None] * dirs
@@ -209,8 +156,7 @@ def render_block(scene: Scene, camera: Camera, lights: Lights,
         rec_dist = jnp.minimum(rec_dist, dist)
 
         occ_rows = _merged_occlusion_rows(pos, block, src_pos, cfg,
-                                          MODEL_AXIS,
-                                          image_hw=(rows, cfg.width))
+                                          MODEL_AXIS)
         direct = direct_light(pos, idx_safe, scene, lights, cfg,
                               occlusion_rows=occ_rows)
         albedo = scene.color[idx_safe]
@@ -229,13 +175,12 @@ def _soft_combine(vals, m, s, bg_logit, axis_name):
     S_i = s_i * exp(m_i) and the combined denominator counts the
     background nm times; subtract the nm - 1 duplicates. The global max
     M is stop-gradded (any shift gives the same value AND gradient; the
-    stats kernels' s-cotangent carries the full logit dependence —
-    kernels/soft_raster_pallas._soft_agg_stats).
-    vals: (K, P); m, s: (1, P). Returns (K, P) normalized.
+    s-cotangent carries the full logit dependence).
+    vals: (P, K); m, s: (P, 1). Returns (P, K) normalized.
     """
     nm = jax.lax.axis_size(axis_name)
     ms = jax.lax.all_gather(jax.lax.stop_gradient(m), axis_name)
-    M = jnp.max(ms, axis=0)  # (1, P)
+    M = jnp.max(ms, axis=0)  # (P, 1)
     w = s * jnp.exp(m - M)
     num = jax.lax.psum(vals * w, axis_name)
     den = jax.lax.psum(w, axis_name)
@@ -243,180 +188,82 @@ def _soft_combine(vals, m, s, bg_logit, axis_name):
     return num / den
 
 
-def _shard_pad_rows(table, axis_name, chunk, cols):
-    """This shard's contiguous row block of a replicated (T, cols) table,
-    zero-padded up to a chunk multiple (zero rows are inactive: their
-    valid column is 0)."""
-    mi = jax.lax.axis_index(axis_name)
-    nm = jax.lax.axis_size(axis_name)
-    T = table.shape[0]
-    if T % nm != 0:
-        raise ValueError(
-            f"triangle count {T} not divisible by model axis {nm}; "
-            "use Scene.pad_to"
-        )
-    tb = T // nm
-    block = jax.lax.dynamic_slice_in_dim(table, mi * tb, tb, axis=0)
-    padt = chunk if tb == 0 else (-tb) % chunk
-    if padt:
-        block = jnp.concatenate(
-            [block, jnp.zeros((padt, cols), jnp.float32)], axis=0)
-    return block
-
-
-def _pad_minor(arr, tile_p, fill):
-    padr = (-arr.shape[1]) % tile_p
-    if padr:
-        arr = jnp.concatenate(
-            [arr, jnp.full((arr.shape[0], padr), fill, jnp.float32)],
-            axis=1)
-    return arr
-
-
 def soft_raster_block(scene: Scene, camera: Camera, lights: Lights,
-                      cfg: RenderConfig, y0, rows: int,
-                      tile_p: int = 1024, chunk: int = 32,
-                      interpret: bool | None = None) -> jax.Array:
+                      cfg: RenderConfig, y0, rows: int) -> jax.Array:
     """Soft-rasterize a row block inside shard_map (data+model sharded).
 
     The silhouette-gradient renderer (BASELINE config 4) on a mesh:
     pixels shard over 'data' rows; triangles shard over 'model', each
-    shard running the fused stats kernel on its block and the global
+    shard running the single-device soft z-buffer sweep
+    (render.soft.rasterize_soft_partials) on its block and the global
     soft-z softmax merging via _soft_combine (the smooth analog of
     raster_block's hard max-zinv merge). Returns (rows * W, 3) with
     end-to-end gradients (vertices, colors, camera, lights).
     """
-    from raytpu.kernels.soft_raster_pallas import (
-        _CONST_COLS,
-        _soft_agg_stats,
-        camera_globals,
-        lights_table,
-        soft_tri_constants,
-    )
-    from raytpu.render.soft import _screen_vertices
+    from raytpu.render.soft import rasterize_soft_partials, shade_agg_raster
 
-    sx, sy, zinv, pos3d = _screen_vertices(scene, camera, cfg)
-    consts_full = soft_tri_constants(
-        sx, sy, zinv, pos3d, scene.color, scene.normals(), scene.active
-    )
-    tb = scene.num_triangles // jax.lax.axis_size(MODEL_AXIS)
-    chunk = min(chunk, max(tb, 8))
-    consts = _shard_pad_rows(consts_full, MODEL_AXIS, chunk, _CONST_COLS)
-
+    block, _ = _scene_block(scene, MODEL_AXIS)
     xs, ys = _block_grid(cfg, y0, rows)
-    R = xs.shape[0]
-    coords = _pad_minor(jnp.stack([xs, ys], axis=0), tile_p, -1e9)
-
-    agg, m, s = _soft_agg_stats(
-        consts, camera_globals(camera, cfg), lights_table(lights), coords,
-        None, float(cfg.soft_edge_sharpness), float(cfg.soft_z_sharpness),
-        float(cfg.ambient), lights.capacity, tile_p, chunk, interpret,
-    )
+    agg, m, s = rasterize_soft_partials(jnp.stack([xs, ys], axis=-1),
+                                        block, camera, cfg)
     # Background logit 0 (`rasteriser.cpp:188` cleared-to-0 depth buffer).
-    out = _soft_combine(agg, m, s, 0.0, MODEL_AXIS)[:, :R].T
-
-    from raytpu.render.soft import shade_agg_raster
-
+    out = _soft_combine(agg, m[:, None], s[:, None], 0.0, MODEL_AXIS)
     return shade_agg_raster(out[:, 0:3], out[:, 3:6], out[:, 6],
                             out[:, 7:10], camera, lights,
                             float(cfg.ambient))
 
 
 def soft_raytrace_block(scene: Scene, camera: Camera, lights: Lights,
-                        cfg: RenderConfig, y0, rows: int,
-                        tile_p: int = 1024, chunk: int = 32,
-                        interpret: bool | None = None) -> jax.Array:
+                        cfg: RenderConfig, y0, rows: int) -> jax.Array:
     """Soft-raytrace a row block inside shard_map (data+model sharded).
 
-    Primary softmin-over-depth partials merge via _soft_combine; the
-    optical-depth shadow transmittance is exp(-kappa * od) with a
-    shard-ADDITIVE od, so the per-shard factors merge with an
-    all_gather product over 'model' (kernels/soft_raytrace_pallas).
-    Returns (rows * W, 3).
+    Primary softmin-over-depth partials (render.soft.
+    raytrace_soft_partials on this shard's triangle block) merge via
+    _soft_combine; the shadow optical depth is a plain sum over
+    triangles, so the per-shard depths merge with a psum over 'model'
+    before the transmittance. Returns (rows * W, 3).
     """
-    from raytpu.kernels import soft_raytrace_pallas as srt
-    from raytpu.kernels.soft_raster_pallas import lights_table
     from raytpu.render.raytrace import camera_ray_dirs
-    from raytpu.render.soft import _T_NEAR
-
-    es = float(cfg.soft_edge_sharpness)
-    zs = float(cfg.soft_z_sharpness)
-    t_near = float(_T_NEAR)
-
-    xs, ys = _block_grid(cfg, y0, rows)
-    dirs = camera_ray_dirs(xs, ys, camera, cfg)  # (R, 3)
-    R = dirs.shape[0]
-    dirs_t = _pad_minor(dirs.T, tile_p, 1e-6)
-
-    tb = scene.num_triangles // jax.lax.axis_size(MODEL_AXIS)
-    chunk = min(chunk, max(tb, 8))
-    pri = _shard_pad_rows(srt.primary_tri_constants(scene, camera.pos),
-                          MODEL_AXIS, chunk, srt._PRI_COLS)
-    shw = _shard_pad_rows(srt.shadow_tri_constants(scene),
-                          MODEL_AXIS, chunk, srt._SHW_COLS)
-
-    glob = jnp.concatenate(
-        [camera.pos, jnp.zeros((13,), jnp.float32)])[None, :]
-    lt = lights_table(lights)
-
-    out, m, s = srt._primary_agg_stats(
-        pri, glob, lt, dirs_t, None, es, zs, float(cfg.ambient),
-        lights.capacity, t_near, tile_p, chunk, interpret,
+    from raytpu.render.soft import (
+        raytrace_soft_partials,
+        shade_agg_raytrace,
+        shadow_transmittance,
+        soft_optical_depth,
     )
-    # Background logit 0 (round-5 bounded-background relaxation — the
-    # raytrace analog of the rasterizer's cleared-to-0 depth buffer).
-    comb = _soft_combine(out, m, s, 0.0, MODEL_AXIS)
-    alb, world, nrm = comb[0:3], comb[3:6], comb[6:9]
 
-    samples = max(cfg.soft_shadow_samples, 1)
-    if samples > 1:
-        src_pos = lights.jitter[:, :samples].reshape(-1, 3)
-    else:
-        src_pos = lights.position
-    S = src_pos.shape[0]
-    srcs = jnp.concatenate(
-        [src_pos, jnp.zeros((S, 5), jnp.float32)], axis=1)
+    block, _ = _scene_block(scene, MODEL_AXIS)
+    xs, ys = _block_grid(cfg, y0, rows)
+    dirs = camera_ray_dirs(xs, ys, camera, cfg)
+    agg, m, s = raytrace_soft_partials(dirs, camera.pos, block, cfg)
+    # Background logit 0 (bounded-background relaxation — the raytrace
+    # analog of the rasterizer's cleared-to-0 depth buffer).
+    comb = _soft_combine(agg, m[:, None], s[:, None], 0.0, MODEL_AXIS)
+    alb, world, nrm = comb[:, 0:3], comb[:, 3:6], comb[:, 6:9]
 
-    # Per-shard transmittance exp(-kappa * od_local): the cross-shard
-    # product equals exp(-kappa * sum od) — the optical depth is
-    # shard-additive (render.soft._soft_shadow_factor).
-    trans_local = srt._shadow_trans(shw, srcs, world, None, es, zs,
-                                    tile_p, chunk, interpret)  # (S, Rp)
-    trans = jnp.prod(jax.lax.all_gather(trans_local, MODEL_AXIS), axis=0)
-
-    per_light = jnp.mean(trans.reshape(lights.capacity, samples, -1),
-                         axis=1)
-    denom = jnp.maximum(jnp.sum(lights.mask), 1.0)
-    shadow = jnp.sum(lights.mask[:, None] * per_light, axis=0) / denom
-
-    from raytpu.render.soft import shade_agg_raytrace
-
-    final = shade_agg_raytrace(alb.T, world.T, nrm.T, lights,
-                               float(cfg.ambient), shadow)
-    return final[:R]
+    od = jax.lax.psum(
+        soft_optical_depth(world, block, shadow_sources(lights, cfg), cfg),
+        MODEL_AXIS)
+    shadow = shadow_transmittance(od, lights, cfg)
+    return shade_agg_raytrace(alb, world, nrm, lights, float(cfg.ambient),
+                              shadow)
 
 
 def make_sharded_soft_render(mesh, cfg: RenderConfig,
                              renderer: str = "rasterize"):
     """jit-compiled sharded soft (differentiable) forward render:
     (H, W, 3) sharded row-wise over 'data', triangle hypotheses sharded
-    over 'model' with softmax/product merges. renderer: 'rasterize' or
-    'raytrace'."""
+    over 'model' with softmax/optical-depth merges. renderer: 'rasterize'
+    or 'raytrace'."""
     nd = mesh.shape[DATA_AXIS]
     if cfg.height % nd != 0:
         raise ValueError(f"height {cfg.height} not divisible by {nd}")
     rows = cfg.height // nd
     block_fn = (soft_raster_block if renderer == "rasterize"
                 else soft_raytrace_block)
-    # The soft kernels pick interpret mode from the DEFAULT backend;
-    # decide from the mesh's own devices instead (virtual CPU meshes
-    # under a TPU default must interpret).
-    interp = mesh.devices.flat[0].platform != "tpu"
 
     def _block(scene, camera, lights):
         di = jax.lax.axis_index(DATA_AXIS)
-        color = block_fn(scene, camera, lights, cfg, di * rows, rows,
-                         interpret=interp)
+        color = block_fn(scene, camera, lights, cfg, di * rows, rows)
         return color.reshape(rows, cfg.width, 3)
 
     smapped = shard_map(
@@ -435,20 +282,9 @@ class TrainState(NamedTuple):
     opt_state: object
 
 
-def _resolve_pallas_for_mesh(mesh, cfg: RenderConfig) -> RenderConfig:
-    """cfg.use_pallas=None means 'auto by backend' — but the mesh may live
-    on different devices than the default backend (e.g. virtual CPU
-    devices for the multichip dryrun while the default is the TPU).
-    Resolve against the mesh's own devices."""
-    if cfg.use_pallas is None:
-        platform = mesh.devices.flat[0].platform
-        cfg = cfg.replace(use_pallas=(platform == "tpu"))
-    return cfg
-
-
 def dof_block(img_block, fd_block, cfg: RenderConfig, global_h: int, y0,
               axis_name: str = DATA_AXIS):
-    """Clean DoF blur on a row-sharded image via ICI halo exchange.
+    """Clean DoF blur on a row-sharded image via a halo exchange.
 
     The 8x8 window (rows [-K/2, K/2-1] around each pixel, ops/blur.py)
     needs K/2 rows from the previous row shard and K/2-1 from the next:
@@ -498,7 +334,6 @@ def make_sharded_render(mesh, cfg: RenderConfig, with_dof: bool = True):
     """jit-compiled sharded forward render: returns (H, W, 3) image sharded
     row-wise over the data axis. Supports the full clean feature set (AA,
     soft shadows, multi-light, DoF-with-halo-exchange)."""
-    cfg = _resolve_pallas_for_mesh(mesh, cfg)
     nd = mesh.shape[DATA_AXIS]
     if cfg.height % nd != 0:
         raise ValueError(f"height {cfg.height} not divisible by {nd}")
@@ -536,7 +371,7 @@ def raster_block(scene: Scene, camera: Camera, lights: Lights,
     stage and the winner shading use the replicated scene.
     Returns (rows * W, 3).
     """
-    from raytpu.render.soft import _screen_vertices, _shade_winner
+    from raytpu.render.soft import _fields_for, _screen_vertices, _shade_winner
 
     sx, sy, zinv, pos3d = _screen_vertices(scene, camera, cfg)
     # Same culling as single-chip rasterize_exact (backface Z5 honored
@@ -561,36 +396,18 @@ def raster_block(scene: Scene, camera: Camera, lights: Lights,
     def sl(a):
         return jax.lax.dynamic_slice_in_dim(a, base, tb, axis=0)
 
-    if cfg.pallas_enabled:
-        from raytpu.kernels.raster_pallas import (
-            raster_tri_constants,
-            resolve_winner_pallas,
-        )
-
-        consts = raster_tri_constants(sl(sx), sl(sy), sl(zinv), sl(keep))
-        consts = jax.lax.stop_gradient(consts)
-        win_local = resolve_winner_pallas(xs, ys, consts)
-        safe = jnp.maximum(win_local, 0)
-        plane = consts[safe]  # (R, 16)
-        z_local = plane[:, 9] * xs + plane[:, 10] * ys + plane[:, 11]
-        z_local = jnp.where(win_local >= 0, z_local, 0.0)
-    else:
-        from raytpu.render.soft import _fields_for
-
-        p = jnp.stack([xs, ys], axis=-1)
-        sdist, zpx, _, area_ok = _fields_for(
-            p, sl(sx), sl(sy), sl(zinv), sl(pos3d)
-        )
-        covered = (
-            (sdist >= 0.0) & (sl(keep)[None, :] > 0.0) & (zpx > 0.0)
-            & area_ok[None, :]
-        )
-        z_masked = jnp.where(covered, zpx, 0.0)
-        win_local = jnp.argmax(z_masked, axis=1).astype(jnp.int32)
-        z_local = jnp.take_along_axis(
-            z_masked, win_local[:, None], axis=1
-        )[:, 0]
-        win_local = jnp.where(z_local > 0.0, win_local, -1)
+    p = jnp.stack([xs, ys], axis=-1)
+    sdist, zpx, _, area_ok = _fields_for(
+        p, sl(sx), sl(sy), sl(zinv), sl(pos3d)
+    )
+    covered = (
+        (sdist >= 0.0) & (sl(keep)[None, :] > 0.0) & (zpx > 0.0)
+        & area_ok[None, :]
+    )
+    z_masked = jnp.where(covered, zpx, 0.0)
+    win_local = jnp.argmax(z_masked, axis=1).astype(jnp.int32)
+    z_local = jnp.take_along_axis(z_masked, win_local[:, None], axis=1)[:, 0]
+    win_local = jnp.where(z_local > 0.0, win_local, -1)
 
     win_global = jnp.where(win_local >= 0, win_local + base, -1)
     zs = jax.lax.all_gather(
@@ -612,7 +429,6 @@ def raster_block(scene: Scene, camera: Camera, lights: Lights,
 def make_sharded_rasterize(mesh, cfg: RenderConfig):
     """jit-compiled sharded clean rasterizer: (H, W, 3) image sharded
     row-wise over 'data', winner resolve sharded over 'model'."""
-    cfg = _resolve_pallas_for_mesh(mesh, cfg)
     nd = mesh.shape[DATA_AXIS]
     if cfg.height % nd != 0:
         raise ValueError(f"height {cfg.height} not divisible by {nd}")
@@ -644,7 +460,6 @@ def make_sharded_train_step(mesh, cfg: RenderConfig, optimizer,
     'raytrace' or 'rasterize' in soft mode. Returns (train_step, loss_fn)
     — both jit-compiled for the mesh.
     """
-    cfg = _resolve_pallas_for_mesh(mesh, cfg)
     nd = mesh.shape[DATA_AXIS]
     if cfg.height % nd != 0:
         raise ValueError(f"height {cfg.height} not divisible by {nd}")
@@ -653,13 +468,11 @@ def make_sharded_train_step(mesh, cfg: RenderConfig, optimizer,
     soft = cfg.mode == "soft"
     soft_fn = (soft_raster_block if renderer == "rasterize"
                else soft_raytrace_block)
-    interp = mesh.devices.flat[0].platform != "tpu"
 
     def _local_loss(scene, lights, camera, target_block):
         di = jax.lax.axis_index(DATA_AXIS)
         if soft:
-            color = soft_fn(scene, camera, lights, cfg, di * rows, rows,
-                            interpret=interp)
+            color = soft_fn(scene, camera, lights, cfg, di * rows, rows)
             img_block = color.reshape(rows, cfg.width, 3)
         else:
             color, fd = render_block(scene, camera, lights, cfg,

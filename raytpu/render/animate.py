@@ -1,4 +1,4 @@
-"""Frame-sequence driver — the TPU-era analog of the reference's
+"""Frame-sequence driver — the batch analog of the reference's
 realtime Update/Draw loop.
 
 The reference is an interactive SDL app whose Update() applies

@@ -1,6 +1,6 @@
 """Public raytrace API — pure, jittable.
 
-TPU-native re-design of the reference render loop Draw + CalculateDOF
+Data-parallel re-design of the reference render loop Draw + CalculateDOF
 (`raytracer/Source/raytracer.cpp:547-656`): the triple pixel x AA-sample x
 triangle loop becomes a batched intersection (one matmul per triangle chunk,
 see raytpu.ops.intersect) followed by vectorized shading and a windowed blur.
@@ -63,7 +63,8 @@ def camera_ray_dirs(xs, ys, camera: Camera, cfg: RenderConfig) -> jax.Array:
         ],
         axis=-1,
     )
-    # HIGHEST: bf16 default matmul precision on TPU shifts ray dirs ~1e-3.
+    # HIGHEST: a reduced-precision f32 matmul (TF32 on GPUs) shifts ray
+    # dirs ~1e-3.
     return jnp.matmul(d, camera.rotation().T,
                       precision=jax.lax.Precision.HIGHEST)
 
@@ -103,114 +104,15 @@ def _raytrace_full(scene: Scene, camera: Camera, lights: Lights,
     n_sub = len(offsets)  # total sub-rays = AA_SAMPLES^2 (`raytracer.cpp:599`)
     parity_record = cfg.mode == "parity" and n_sub > 1
 
-    # Fused Pallas fast path (single light, hard shadows): primary
-    # closest-hit AND the shadow occlusion bit come from ONE kernel launch
-    # (raytpu.kernels.intersect_pallas.closest_hit_occluded).
-    # parity_record is fused too: each sub-ray shades the RECORD's
-    # (possibly stale) hit, and occlusion is a pure function of the record
-    # POSITION — so the bits computed by the sub-ray that SET the record
-    # are carried alongside it (rec_occ below), bit-identical to
-    # re-tracing from the light at the record position.
-    # Multi-chunk scenes (STL-scale) get conservative chunk culling
-    # (kernels.cull): route single-light through the multi-source kernel
-    # (S=1), which carries the phase mask — results stay bit-identical.
-    big_scene = scene.num_triangles > 128
-    # Fully-fused megakernel: ray shading, shadow test, winner gather,
-    # compositing and the focal-distance channel all in ONE Pallas launch
-    # fwd and two bwd (kernels/render_fused.py) — the reference's
-    # never-leave-the-pixel-loop shape (`raytracer.cpp:547-606`) on-chip.
-    # ON by default since round 5: the (8, tile/8) re-blocking runs the
-    # per-ray work at full vreg density and beats the split design both
-    # directions (RenderConfig.megakernel, bench/megakernel_lab6.py);
-    # conditions: one light, hard shadows, one sub-ray, single chunk.
-    if (
-        cfg.megakernel
-        and cfg.pallas_enabled
-        and lights.capacity == 1
-        and cfg.soft_shadow_samples == 1
-        and n_sub == 1
-        and not big_scene
-        and cfg.mode in ("clean", "parity")
-    ):
-        from raytpu.kernels.render_fused import render_hard_fused
-
-        dirs = camera_ray_dirs(xs, ys, camera, cfg)
-        consts_light = tri_constants(scene, lights.position[0])
-        p_eff = lights.mask[0] * (lights.color[0] * lights.intensity[0])
-        color, fd_flat = render_hard_fused(
-            dirs, consts.m, consts.k0, consts.valid,
-            consts_light.m, consts_light.k0,
-            scene.normals(), scene.color,
-            camera.pos, lights.position[0], p_eff, camera.dof_focus,
-            2048, cfg.tri_chunk, cfg.ambient, cfg.mode == "parity",
-        )
-        img = color.reshape(cfg.height, cfg.width, 3)
-        fd = fd_flat.reshape(cfg.height, cfg.width)
-        out = dof_apply(img, fd, cfg)
-        return RenderOut(image=out, focal_distances=fd)
-
-    fused = (
-        cfg.pallas_enabled
-        and lights.capacity == 1
-        and cfg.soft_shadow_samples == 1
-        and not big_scene
-    )
-    # Multi-source fused path (multi-light and/or soft shadows): ONE kernel
-    # launch per sub-ray produces the primary hit AND the occlusion bit of
-    # every (light, jitter-sample) shadow source — instead of 1 + L*S
-    # separate intersection launches (closest_hit_occluded_multi).
-    fused_multi = cfg.pallas_enabled and not fused
-    if fused:
-        from raytpu.kernels.intersect_pallas import intersect_occluded_pallas
-
-        consts_light = tri_constants(scene, lights.position[0])
-    if fused_multi:
-        from raytpu.kernels.intersect_pallas import (
-            intersect_occluded_multi_pallas,
-        )
-
-        n_s = cfg.soft_shadow_samples
-        if n_s > 1:
-            # Source order is (light-major, sample-minor) — must match the
-            # shading loop in ops/shade.py::direct_light.
-            src_pos = lights.jitter[:, :n_s].reshape(-1, 3)
-        else:
-            src_pos = lights.position
-        consts_src = jax.vmap(lambda o: tri_constants(scene, o))(src_pos)
-
     accum = jnp.zeros((xs.shape[0], 3), jnp.float32)
     # Closest Euclidean distance per pixel across sub-rays (the reference's
     # persistent intersection record, `raytracer.cpp:580`); feeds DoF.
     rec_dist = jnp.full(xs.shape, _F32MAX, jnp.float32)
     rec_idx = jnp.zeros(xs.shape, jnp.int32)
     rec_pos = jnp.zeros((xs.shape[0], 3), jnp.float32)
-    # Occlusion bits AT THE RECORD position (parity-AA fused path): set by
-    # whichever sub-ray last updated the record.
-    rec_occ = jnp.zeros(xs.shape, bool)
-    rec_occ_rows = None
-
     for dx, dy in offsets:
         dirs = camera_ray_dirs(xs + dx, ys + dy, camera, cfg)
-        occlusion_fn = None
-        occlusion_rows = None
-        if fused:
-            hits, occluded = intersect_occluded_pallas(
-                dirs, consts, consts_light, camera.pos,
-                lights.position[0], tri_chunk=cfg.tri_chunk,
-            )
-            occlusion_fn = lambda _pos, _delta, _r: occluded  # noqa: E731
-        elif fused_multi:
-            hits, occlusion_rows = intersect_occluded_multi_pallas(
-                dirs, consts, consts_src, camera.pos, src_pos,
-                tri_chunk=cfg.tri_chunk,
-                scene_geom=(
-                    (scene.v0, scene.v1, scene.v2) if big_scene else None
-                ),
-                image_hw=(cfg.height, cfg.width),
-            )
-        else:
-            hits = intersect(dirs, consts, tri_chunk=cfg.tri_chunk,
-                             use_pallas=cfg.pallas_enabled)
+        hits = intersect(dirs, consts, tri_chunk=cfg.tri_chunk)
         dist = hit_distances(dirs, hits)
 
         # Merge into the running record (`>=` update semantics, `:243`).
@@ -220,21 +122,6 @@ def _raytrace_full(scene: Scene, camera: Camera, lights: Lights,
         rec_pos = jnp.where(
             upd[:, None], hit_positions(camera.pos, dirs, hits), rec_pos
         )
-        if parity_record and fused:
-            # Occlusion is a pure function of the record position, so the
-            # bits the kernel computed for this sub-ray's own hit are the
-            # record's bits exactly when this sub-ray set the record.
-            rec_occ = jnp.where(upd, occluded, rec_occ)
-            occlusion_fn = (
-                lambda _pos, _delta, _r, _o=rec_occ: _o)  # noqa: E731
-        elif parity_record and fused_multi:
-            rec_occ_rows = (
-                jnp.where(upd[None, :], occlusion_rows, rec_occ_rows)
-                if rec_occ_rows is not None
-                else jnp.where(upd[None, :], occlusion_rows, False)
-            )
-            occlusion_rows = rec_occ_rows
-
         if parity_record:
             # Parity quirk: each sub-ray shades the RECORD's hit, which may
             # be a stale closer hit from an earlier sub-ray.
@@ -259,8 +146,7 @@ def _raytrace_full(scene: Scene, camera: Camera, lights: Lights,
             n_dir = None
             albedo = scene.color[shade_idx]
         direct = direct_light(pos, shade_idx, scene, lights, cfg,
-                              n_dir=n_dir, occlusion_fn=occlusion_fn,
-                              occlusion_rows=occlusion_rows)
+                              n_dir=n_dir)
         color = composite(direct, albedo, hits.hit, cfg)
         # Reference adds a sample only when the sub-ray itself hit
         # (`raytracer.cpp:580-591`).

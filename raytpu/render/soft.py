@@ -9,32 +9,28 @@ invisible to autodiff through a hard select. The soft paths replace the
 hard visibility decision with a smooth aggregation (soft-rasterizer-style)
 so that losses see occlusion boundaries.
 
-Round-4 relaxation (VERDICT r3 item 2 — the old form was measured
-transcendental-bound, bench/ROOFLINE.md):
+Relaxation:
 
   * hypotheses aggregate ATTRIBUTES (albedo, position/zinv, normal) and
-    shading runs ONCE per pixel on the aggregated surface — the
-    per-hypothesis inverse-square/Lambert work (rsqrt, divides, the
-    world transform) of the old form is gone. Hard limit unchanged:
+    shading runs ONCE per pixel on the aggregated surface. Hard limit:
     aggregation converges to the winner's attributes, then shades
     exactly like 'clean'.
   * shadows are optical-depth: T = exp(-kappa * sum occ) (NeRF-style
-    transmittance; kappa = _OD_SCALE) instead of a per-triangle
-    log-product — one exp per RAY instead of a log per PAIR (the od sum
-    is also shard-additive, which simplifies the model-parallel merge).
+    transmittance; kappa = _OD_SCALE) — one exp per RAY instead of a log
+    per (ray, triangle) pair, and the od sum is shard-additive, which
+    makes the model-parallel merge an add.
   * the raytracer's depth logit is METRIC (t * |d|): the raw ray
-    parameter is in unnormalized-|d| units, which made the effective
-    depth sharpness ~|d| (~300x) weaker than the rasterizer's and
-    FOV-dependent; behind-camera plane hits are now hard-gated out of
-    the aggregation (they used to carry background-level weight).
-  * coverage stays the SIGMOID in additive log-space
+    parameter is in unnormalized-|d| units, which would make the
+    effective depth sharpness ~|d| (~300x) weaker than the rasterizer's
+    and FOV-dependent; behind-camera plane hits are hard-gated out of
+    the aggregation.
+  * coverage is the SIGMOID in additive log-space
     (zs-depth + log_sigmoid(es * edge) + log(valid)). A compact-support
-    smoothstep alternative was built and measured: ~15% cheaper and it
-    makes chunk culling exactly lossless, but its zero tail destroys
-    long-range silhouette attraction — the STL-scale vertex fit
-    converges 19x with sigmoid coverage vs 1.3x with every compact
-    band tried. The sigmoid's infinite tail is load-bearing for
-    OPTIMIZATION, not just smoothing; see bench/ROOFLINE.md.
+    smoothstep alternative was tried: its zero tail destroys long-range
+    silhouette attraction — an STL-scale vertex fit converged 19x with
+    sigmoid coverage vs 1.3x with every compact band tried. The
+    sigmoid's infinite tail is load-bearing for OPTIMIZATION, not just
+    smoothing.
 
   raytrace_soft  — barycentric-margin coverage x softmin over t.
   rasterize_soft — screen-space signed-distance coverage x softmax over
@@ -46,8 +42,11 @@ Both converge to the 'clean' hard images as the sharpness parameters grow
 (tests assert the hard limit). Temperatures live in RenderConfig
 (soft_edge_sharpness, soft_z_sharpness).
 
-These are jnp reference implementations; fused Pallas kernels with custom
-VJPs live in raytpu.kernels.
+Each renderer's triangle sweep is a streaming ("online") softmax over
+triangle chunks whose partials (aggregate, running max, mass) are exposed
+(raytrace_soft_partials, rasterize_soft_partials, soft_optical_depth) so
+the model-sharded path (raytpu.parallel.render) runs the same math on its
+triangle block and merges the partials across devices.
 """
 
 from __future__ import annotations
@@ -58,7 +57,7 @@ import jax
 import jax.numpy as jnp
 
 from raytpu.core.types import Camera, Lights, RenderConfig, Scene
-from raytpu.ops.shade import irradiance_no_shadow
+from raytpu.ops.shade import irradiance_no_shadow, shadow_sources
 from raytpu.render.raytrace import camera_ray_dirs, pixel_grid
 
 _MM = partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
@@ -67,20 +66,14 @@ _MM = partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
 # T = e^-16 ~ 1e-7 (exact-black in f32 image terms); fully open gives 1.
 _OD_SCALE = 16.0
 
-# Round 5 (VERDICT r4 item 4): the soft raytracer's depth logit is
-# +zs * zinv with zinv = 1/max(metric dist, _T_NEAR) and a BACKGROUND
-# LOGIT OF 0 — mirroring the rasterizer's cleared-to-0 z-buffer
-# (`rasteriser.cpp:188`) instead of the old -zs * min(dist, t_far) with
-# its t_far miss sentinel. Consequences:
-#   * the hard limit is unchanged (argmax zinv == argmin dist for
-#     forward hits; misses/behind-camera are hard-gated to zero weight);
-#   * a hypothesis's logit is now BOUNDED ABOVE by zs * zinv of its
-#     chunk's nearest possible hit instead of unbounded-relative-to-
-#     background by zs * t_far, which makes the conservative screen-
-#     space chunk cull SOUND for the raytracer too (the old analysis
-#     needed a barycentric margin of ~22 to drop a chunk —
-#     bench/ROOFLINE.md "Soft culling coverage note"; the new one needs
-#     ~(46 + zs * zinv_chunk)/es, a few triangle-extents);
+# The soft raytracer's depth logit is +zs * zinv with
+# zinv = 1/max(metric dist, _T_NEAR) and a BACKGROUND LOGIT OF 0 —
+# mirroring the rasterizer's cleared-to-0 z-buffer (`rasteriser.cpp:188`).
+# Consequences:
+#   * the hard limit is exact (argmax zinv == argmin dist for forward
+#     hits; misses/behind-camera are hard-gated to zero weight);
+#   * a hypothesis's logit is BOUNDED ABOVE by zs * zinv of its nearest
+#     possible hit instead of unbounded relative to the background;
 #   * one zs unit means "per unit of inverse metric distance", matching
 #     the rasterizer's zinv semantics exactly.
 _T_NEAR = 0.1
@@ -93,18 +86,14 @@ _T_NEAR = 0.1
 #     arbitrarily far from the triangle);
 #   * between that and ~1e-3 relative, u and v are correct but carry
 #     relative error ~ ulp(dot)/|denom| — up to ~10% near the bottom of
-#     the range — and under the round-5 bounded logit (which no longer
-#     depth-suppresses grazing hypotheses the way the old -zs*dist form
-#     did) an es-scaled margin noise of that size makes pair weights
-#     differ by e^+-few between the XLA and Pallas evaluations of the
-#     same formula.
+#     the range — and under the bounded logit (which does not
+#     depth-suppress grazing hypotheses) an es-scaled margin noise of
+#     that size makes pair weights differ by e^+-few between two
+#     evaluations of the same formula that contract FMAs differently
+#     (e.g. the CPU and the GPU backend).
 # At 1e-3 the gate drops incidence angles within ~0.06 deg of exactly
 # edge-on (where a hypothesis is a sliver the rasterizer's area_ok test
 # would likewise drop) and everything kept is accurate to ~0.1%.
-# Also required for cull soundness: a gated pair contributes nothing
-# whether its chunk is kept or not, and every kept pair's computed
-# margin obeys the -D/(2E) distance bound (soft_raytrace_pallas
-# _MARGIN_PER_DIST note).
 _DENOM_EPS = 1e-3
 
 def shade_agg_raytrace(alb, pos, nrm, lights: Lights, ambient: float,
@@ -191,10 +180,10 @@ def _chunked_scene(scene: Scene, chunk: int):
 
 
 def raytrace_soft(scene: Scene, camera: Camera, lights: Lights,
-                  cfg: RenderConfig, cull: bool | None = None) -> jax.Array:
+                  cfg: RenderConfig) -> jax.Array:
     """Differentiable raytrace; returns (H, W, 3).
 
-    Round-5 relaxation (module docstring, _T_NEAR note): logit =
+    Relaxation (module docstring, _T_NEAR note): logit =
     z_sharpness * zinv + log_sigmoid(edge_sharpness * margin) +
     log(active), margin = min(u, v, 1-u-v), and zinv =
     1/max(t|d|, dmin_tri, _T_NEAR) — the metric ray-plane-hit depth
@@ -217,20 +206,32 @@ def raytrace_soft(scene: Scene, camera: Camera, lights: Lights,
     soft-shadow samples when cfg.soft_shadow_samples > 1
     (`raytracer.cpp:272-296`). One shadow sweep per light sample, not per
     hypothesis (documented approximation; exact in the hard limit).
-
-    On TPU (cfg.pallas_enabled) this dispatches to the fused Pallas
-    kernels with custom VJPs (raytpu.kernels.soft_raytrace_pallas) —
-    same math to ~1e-5 rel; the jnp streaming path below is the
-    reference implementation and the CPU fallback. `cull` (Pallas path
-    only) enables the conservative chunk cull on multi-chunk scenes.
     """
-    if cfg.pallas_enabled:
-        from raytpu.kernels.soft_raytrace_pallas import raytrace_soft_pallas
-
-        return raytrace_soft_pallas(scene, camera, lights, cfg, cull=cull)
-
     xs, ys = pixel_grid(cfg)
     dirs = camera_ray_dirs(xs, ys, camera, cfg)
+    agg, _, _ = raytrace_soft_partials(dirs, camera.pos, scene, cfg)
+    alb, agg_pos, agg_nrm = agg[:, 0:3], agg[:, 3:6], agg[:, 6:9]
+
+    # Optical-depth shadow at the aggregated position; scales the direct
+    # term only (`raytracer.cpp:314` zeroes only D).
+    shadow = _soft_shadow_factor(agg_pos, scene, lights, cfg)
+    img = shade_agg_raytrace(alb, agg_pos, agg_nrm, lights, cfg.ambient,
+                             shadow)
+    return img.reshape(cfg.height, cfg.width, 3)
+
+
+def raytrace_soft_partials(dirs: jax.Array, origin: jax.Array,
+                           scene: Scene, cfg: RenderConfig):
+    """Streaming softmin-over-depth of rays ``origin + t * dirs`` against
+    ``scene``'s triangles plus the background hypothesis (logit 0, zero
+    attributes).
+
+    dirs: (R, 3). Returns the online-softmax partials (agg, m, s):
+    agg (R, 9) the normalized (albedo, hit position, normal) aggregate,
+    m (R,) the running max logit and s (R,) the softmax mass relative to
+    exp(m). A model-sharded caller runs this on its triangle block and
+    merges the partials (parallel.render._soft_combine).
+    """
     R = dirs.shape[0]
     zs = jnp.float32(cfg.soft_z_sharpness)
     es = jnp.float32(cfg.soft_edge_sharpness)
@@ -246,7 +247,7 @@ def raytrace_soft(scene: Scene, camera: Camera, lights: Lights,
     def body(carry, ch):
         m, s, acc = carry
         t, u, v, denom, nmag = _ray_tri_tuv(
-            dirs, ch["v0"], ch["v1"], ch["v2"], camera.pos)
+            dirs, ch["v0"], ch["v1"], ch["v2"], origin)
         margin = jnp.minimum(jnp.minimum(u, v), 1.0 - u - v)
         # Hard-gate behind-camera / near-parallel plane hits (exactly
         # zero weight; clamp artifacts otherwise ghost — see _DENOM_EPS).
@@ -268,7 +269,7 @@ def raytrace_soft(scene: Scene, camera: Camera, lights: Lights,
             jnp.maximum(jnp.sum((ch["v0"] - cen) ** 2, axis=-1),
                         jnp.sum((ch["v1"] - cen) ** 2, axis=-1)),
             jnp.sum((ch["v2"] - cen) ** 2, axis=-1))
-        oc = jnp.linalg.norm(cen - camera.pos[None, :], axis=-1)
+        oc = jnp.linalg.norm(cen - origin[None, :], axis=-1)
         dmin = jnp.maximum(oc - jnp.sqrt(r2t + 1e-20), 0.0)
         dist = t * dnorm[:, None]
         zinv = 1.0 / jnp.maximum(
@@ -281,17 +282,11 @@ def raytrace_soft(scene: Scene, camera: Camera, lights: Lights,
         logit = jnp.where(fwd_ok, logit, -1e30)
 
         tp = jnp.where(fwd_ok & (t < 3e38), t, 0.0)
-        pos = camera.pos[None, None, :] + tp[..., None] * dirs[:, None, :]
+        pos = origin[None, None, :] + tp[..., None] * dirs[:, None, :]
         alb = jnp.broadcast_to(ch["color"][None, :, :], pos.shape)
         nrm = jnp.broadcast_to(ch["normal"][None, :, :], pos.shape)
-
-        m_new = jnp.maximum(m, jnp.max(logit, axis=1))
-        scale = jnp.exp(m - m_new)
-        w = jnp.exp(logit - m_new[:, None])
-        s_new = s * scale + jnp.sum(w, axis=1)
         num = jnp.concatenate([alb, pos, nrm], axis=-1)  # (R, C, 9)
-        acc_new = acc * scale[:, None] + jnp.einsum("rc,rcd->rd", w, num)
-        return (m_new, s_new, acc_new), None
+        return _online_softmax_step(m, s, acc, logit, num), None
 
     # Background hypothesis at logit 0 (black at infinity).
     dt = dirs.dtype
@@ -300,34 +295,47 @@ def raytrace_soft(scene: Scene, camera: Camera, lights: Lights,
         jnp.ones((R,), dt),
         jnp.zeros((R, 9), dt),
     )
-    (m, s_den, acc), _ = jax.lax.scan(
-        body, init,
-        jax.tree_util.tree_map(lambda a: a, chunks),
-    )
-    agg = acc / s_den[:, None]
-    alb, agg_pos, agg_nrm = agg[:, 0:3], agg[:, 3:6], agg[:, 6:9]
+    (m, s, acc), _ = jax.lax.scan(body, init, chunks)
+    return acc / s[:, None], m, s
 
-    # Optical-depth shadow at the aggregated position; scales the direct
-    # term only (`raytracer.cpp:314` zeroes only D).
-    shadow = _soft_shadow_factor(agg_pos, scene, lights, cfg)
-    img = shade_agg_raytrace(alb, agg_pos, agg_nrm, lights, cfg.ambient,
-                             shadow)
-    return img.reshape(cfg.height, cfg.width, 3)
+
+def _online_softmax_step(m, s, acc, logit, num):
+    """Fold one chunk of hypotheses into the running softmax partials.
+
+    m, s: (R,); acc: (R, K); logit: (R, C); num: (R, C, K). The weighted
+    attribute sum is a contraction over C, pinned to full f32 precision
+    (a reduced-precision matmul would round the attributes to ~1e-3)."""
+    m_new = jnp.maximum(m, jnp.max(logit, axis=1))
+    scale = jnp.exp(m - m_new)
+    w = jnp.exp(logit - m_new[:, None])
+    s_new = s * scale + jnp.sum(w, axis=1)
+    acc_new = acc * scale[:, None] + jnp.einsum(
+        "rc,rcd->rd", w, num, precision=jax.lax.Precision.HIGHEST)
+    return m_new, s_new, acc_new
 
 
 def _soft_shadow_factor(world: jax.Array, scene: Scene, lights: Lights,
                         cfg: RenderConfig) -> jax.Array:
-    """Smooth visibility toward each active light, averaged by light mask
-    and over jittered soft-shadow sample positions.
+    """Smooth visibility of each (R, 3) point toward the lights over the
+    whole scene: the optical-depth sweep followed by the transmittance
+    average. Returns (R,)."""
+    od = soft_optical_depth(world, scene, shadow_sources(lights, cfg), cfg)
+    return shadow_transmittance(od, lights, cfg)
+
+
+def soft_optical_depth(world: jax.Array, scene: Scene, sources: jax.Array,
+                       cfg: RenderConfig) -> jax.Array:
+    """Optical depth toward each shadow source over ``scene``'s triangles.
 
     Relaxation of `raytracer.cpp:307-315` (occluded when an intersection
-    from the light toward the point is closer than 0.99 r) as an
-    optical depth: od = sum over triangles of
-    sigmoid(es * margin) * sigmoid(zs * (0.99 r - t)), transmittance
-    T = exp(-_OD_SCALE * od). od is a plain SUM, so the chunk combine
-    (and the model-shard combine, parallel/render.py) is an add; one
-    exp per (ray, source) instead of a log per (ray, triangle).
-    Hard limit: any real occluder gives od >= 1 => T <= e^-16 ~ 0.
+    from the light toward the point is closer than 0.99 r): od = sum over
+    triangles of sigmoid(es * margin) * sigmoid(zs * (0.99 r - t)). od is
+    a plain SUM, so the chunk combine and the model-shard combine
+    (parallel/render.py) are adds. Hard limit: any real occluder gives
+    od >= 1 => T <= e^-16 ~ 0 (shadow_transmittance).
+
+    world: (R, 3); sources: (S, 3) (ops.shade.shadow_sources). Returns
+    (S, R).
 
     Saturation regime (measured): at very soft settings the SUM's
     sigmoid tails dominate — with ~32 triangles at es <= ~10 every
@@ -338,50 +346,53 @@ def _soft_shadow_factor(world: jax.Array, scene: Scene, lights: Lights,
     through the rasterize path (no shadow term) at softer settings, as
     bench/fit_reference.py does.
     """
-    total = jnp.zeros(world.shape[0], world.dtype)
-    denom = jnp.maximum(jnp.sum(lights.mask), 1.0)
-    samples = max(cfg.soft_shadow_samples, 1)
     chunks = _chunked_scene(scene, cfg.raster_tri_chunk)
     es = jnp.float32(cfg.soft_edge_sharpness)
     zs = jnp.float32(cfg.soft_z_sharpness)
 
-    for k in range(lights.capacity):
-        light_total = jnp.zeros(world.shape[0], world.dtype)
-        for si in range(samples):
-            if samples > 1:
-                position = lights.jitter[k, si]
-            else:
-                position = lights.position[k]
-            delta = world - position
-            # Guard r = 0 (light on the aggregated surface point) — the
-            # sqrt AND the reciprocal both need it for finite grads.
-            r2 = jnp.sum(delta * delta, axis=-1)
-            r = jnp.sqrt(jnp.where(r2 > 0.0, r2, 1.0))
-            d_hat = delta / r[..., None]
+    rows = []
+    for si in range(sources.shape[0]):
+        position = sources[si]
+        delta = world - position
+        # Guard r = 0 (light on the aggregated surface point) — the
+        # sqrt AND the reciprocal both need it for finite grads.
+        r2 = jnp.sum(delta * delta, axis=-1)
+        r = jnp.sqrt(jnp.where(r2 > 0.0, r2, 1.0))
+        d_hat = delta / r[..., None]
 
-            def body(od, ch, position=position, r=r, d_hat=d_hat):
-                t, u, v, denom, nmag = _ray_tri_tuv(
-                    d_hat, ch["v0"], ch["v1"], ch["v2"], position
-                )
-                margin = jnp.minimum(jnp.minimum(u, v), 1.0 - u - v)
-                cov = jax.nn.sigmoid(es * margin) * ch["active"][None, :]
-                # d_hat is unit, so the near-parallel gate (_DENOM_EPS)
-                # is relative to |n| alone.
-                ok = (t > 1e-6) & (
-                    jnp.abs(denom) > _DENOM_EPS * nmag[None, :]
-                )
-                occ_z = jnp.where(
-                    ok, jax.nn.sigmoid(zs * (0.99 * r[:, None] - t)), 0.0,
-                )
-                return od + jnp.sum(cov * occ_z, axis=1), None
-
-            od, _ = jax.lax.scan(
-                body, jnp.zeros(world.shape[0], world.dtype), chunks
+        def body(od, ch, position=position, r=r, d_hat=d_hat):
+            t, u, v, denom, nmag = _ray_tri_tuv(
+                d_hat, ch["v0"], ch["v1"], ch["v2"], position
             )
-            light_total = light_total + jnp.exp(-jnp.float32(_OD_SCALE)
-                                                * od)
-        total = total + lights.mask[k] * (light_total / samples)
-    return total / denom
+            margin = jnp.minimum(jnp.minimum(u, v), 1.0 - u - v)
+            cov = jax.nn.sigmoid(es * margin) * ch["active"][None, :]
+            # d_hat is unit, so the near-parallel gate (_DENOM_EPS)
+            # is relative to |n| alone.
+            ok = (t > 1e-6) & (
+                jnp.abs(denom) > _DENOM_EPS * nmag[None, :]
+            )
+            occ_z = jnp.where(
+                ok, jax.nn.sigmoid(zs * (0.99 * r[:, None] - t)), 0.0,
+            )
+            return od + jnp.sum(cov * occ_z, axis=1), None
+
+        od, _ = jax.lax.scan(
+            body, jnp.zeros(world.shape[0], world.dtype), chunks
+        )
+        rows.append(od)
+    return jnp.stack(rows)
+
+
+def shadow_transmittance(od: jax.Array, lights: Lights,
+                         cfg: RenderConfig) -> jax.Array:
+    """Shadow factor per ray from the (S, R) optical depths: T =
+    exp(-kappa * od) per source, averaged over each light's samples and
+    then over the active lights (by light mask). Returns (R,)."""
+    samples = max(cfg.soft_shadow_samples, 1)
+    trans = jnp.exp(-jnp.float32(_OD_SCALE) * od)
+    per_light = jnp.mean(trans.reshape(lights.capacity, samples, -1), axis=1)
+    denom = jnp.maximum(jnp.sum(lights.mask), 1.0)
+    return jnp.sum(lights.mask[:, None] * per_light, axis=0) / denom
 
 
 # ---------------------------------------------------------------------------
@@ -532,19 +543,27 @@ def rasterize_soft(scene: Scene, camera: Camera, lights: Lights,
     screen space — the standard perspective-correct scheme, same as
     `rasteriser.cpp:538-541`); shading runs once per pixel on the
     aggregate (shade_agg_raster).
-
-    On TPU (cfg.pallas_enabled) this dispatches to the fused Pallas
-    kernel with a custom VJP (raytpu.kernels.soft_raster_pallas) —
-    same math, ~1e-5 rel, ~7x faster fwd+bwd; the jnp streaming path
-    below is the reference implementation and the CPU fallback.
     """
-    if cfg.pallas_enabled:
-        from raytpu.kernels.soft_raster_pallas import rasterize_soft_pallas
+    agg, _, _ = rasterize_soft_partials(_pixel_centers(cfg), scene, camera,
+                                        cfg)
+    img = shade_agg_raster(agg[:, 0:3], agg[:, 3:6], agg[:, 6],
+                           agg[:, 7:10], camera, lights, cfg.ambient)
+    return img.reshape(cfg.height, cfg.width, 3)
 
-        return rasterize_soft_pallas(scene, camera, lights, cfg)
 
-    H, W = cfg.height, cfg.width
-    p = _pixel_centers(cfg)
+def rasterize_soft_partials(p: jax.Array, scene: Scene, camera: Camera,
+                            cfg: RenderConfig):
+    """Streaming soft z-buffer of pixels ``p`` (R, 2) against ``scene``'s
+    triangles plus the background hypothesis (logit 0 at zinv = 0, the
+    cleared depth buffer `rasteriser.cpp:188`; zero attributes).
+
+    Returns the online-softmax partials (agg, m, s): agg (R, 10) the
+    normalized (albedo, pos3d numerator, zinv, normal) aggregate, m (R,)
+    the running max logit and s (R,) the softmax mass relative to
+    exp(m). O(R * chunk) live memory, so 9k-triangle scenes fit. A
+    model-sharded caller runs this on its triangle block and merges the
+    partials (parallel.render._soft_combine).
+    """
     sx, sy, zinv, pos3d = _screen_vertices(scene, camera, cfg)
     keep = scene.active
     colors = scene.color
@@ -578,20 +597,11 @@ def rasterize_soft(scene: Scene, camera: Camera, lights: Lights,
         )
         alb = jnp.broadcast_to(colc[None, :, :], ppx.shape)
         nrm = jnp.broadcast_to(nc[None, :, :], ppx.shape)
-        # Streaming ("online") softmax over triangle chunks — O(R * chunk)
-        # live memory, so 9k-triangle scenes fit.
-        m_new = jnp.maximum(m, jnp.max(logit, axis=1))
-        scale = jnp.exp(m - m_new)
-        w = jnp.exp(logit - m_new[:, None])
-        s_new = s * scale + jnp.sum(w, axis=1)
         num = jnp.concatenate(
             [alb, ppx, zpx[..., None], nrm], axis=-1
         )  # (R, C, 10)
-        acc_new = acc * scale[:, None] + jnp.einsum("rc,rcd->rd", w, num)
-        return (m_new, s_new, acc_new), None
+        return _online_softmax_step(m, s, acc, logit, num), None
 
-    # Background hypothesis: logit 0 at zinv = 0 (cleared depth buffer,
-    # `rasteriser.cpp:188`), black/zero attributes.
     dt = sx.dtype
     init = (
         jnp.zeros((R,), dt),        # m = bg logit
@@ -600,11 +610,8 @@ def rasterize_soft(scene: Scene, camera: Camera, lights: Lights,
     )
     xs_in = (resh(sx), resh(sy), resh(zinv), resh(pos3d), resh(keep),
              resh(colors), resh(normals))
-    (m, s_den, acc), _ = jax.lax.scan(body, init, xs_in)
-    agg = acc / s_den[:, None]
-    img = shade_agg_raster(agg[:, 0:3], agg[:, 3:6], agg[:, 6],
-                           agg[:, 7:10], camera, lights, cfg.ambient)
-    return img.reshape(H, W, 3)
+    (m, s, acc), _ = jax.lax.scan(body, init, xs_in)
+    return acc / s[:, None], m, s
 
 
 def rasterize_exact(scene: Scene, camera: Camera, lights: Lights,
@@ -617,10 +624,9 @@ def rasterize_exact(scene: Scene, camera: Camera, lights: Lights,
     buffer). This is 'clean'-mode rasterization: the reference's scanline
     truncation quirks (kept in mode='parity') are dropped.
 
-    The winner search runs in the fused Pallas tile kernel on TPU
-    (raytpu.kernels.raster_pallas); only the winner's attributes are then
-    recomputed and shaded — gradients flow through that recompute (the
-    winner index is piecewise-constant either way).
+    Only the winner's attributes are then recomputed and shaded —
+    gradients flow through that recompute (the winner index is
+    piecewise-constant).
     """
     H, W = cfg.height, cfg.width
     sx, sy, zinv, pos3d = _screen_vertices(scene, camera, cfg)
@@ -642,32 +648,17 @@ def rasterize_exact(scene: Scene, camera: Camera, lights: Lights,
     px = xs.reshape(-1)
     py = ys.reshape(-1)
 
-    if cfg.pallas_enabled:
-        from raytpu.kernels.raster_pallas import (
-            raster_tri_constants,
-            resolve_winner_pallas,
-        )
-
-        consts = raster_tri_constants(sx, sy, zinv, keep)
-        winner = resolve_winner_pallas(
-            px, py, jax.lax.stop_gradient(consts),
-            screen_verts=jax.lax.stop_gradient((sx, sy, zinv)),
-            image_hw=(H, W),
-        )
-    else:
-        sdist, zpx_f, _, area_ok = _fields_for(
-            _pixel_centers(cfg), sx, sy, zinv, pos3d
-        )
-        covered = (
-            (sdist >= 0.0) & (keep[None, :] > 0.0) & (zpx_f > 0.0)
-            & area_ok[None, :]
-        )
-        z_masked = jnp.where(covered, zpx_f, -jnp.inf)
-        arg = jnp.argmax(z_masked, axis=1)
-        hit = (
-            jnp.take_along_axis(z_masked, arg[:, None], axis=1)[:, 0] > 0.0
-        )
-        winner = jnp.where(hit, arg, -1).astype(jnp.int32)
+    sdist, zpx_f, _, area_ok = _fields_for(
+        _pixel_centers(cfg), sx, sy, zinv, pos3d
+    )
+    covered = (
+        (sdist >= 0.0) & (keep[None, :] > 0.0) & (zpx_f > 0.0)
+        & area_ok[None, :]
+    )
+    z_masked = jnp.where(covered, zpx_f, -jnp.inf)
+    arg = jnp.argmax(z_masked, axis=1)
+    hit = jnp.take_along_axis(z_masked, arg[:, None], axis=1)[:, 0] > 0.0
+    winner = jnp.where(hit, arg, -1).astype(jnp.int32)
 
     img = _shade_winner(winner, px, py, sx, sy, zinv, pos3d, scene,
                         camera, lights, cfg)

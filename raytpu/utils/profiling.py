@@ -7,7 +7,7 @@ logs (SURVEY.md §5). raytpu provides:
   * FrameTimer        — the same per-frame timing, plus rays/s // Mrays/s
                         counters and aggregate stats.
   * trace             — context manager around `jax.profiler.trace` for
-                        on-device TPU traces (view in TensorBoard/xprof).
+                        on-device traces (view in TensorBoard/xprof).
   * log_metrics       — structured one-line JSON metric records (loss,
                         grad-norm, rays/s) for training loops.
 """
@@ -69,7 +69,7 @@ class FrameTimer:
 
 @contextlib.contextmanager
 def trace(log_dir: str):
-    """Capture a TPU profiler trace of the enclosed block."""
+    """Capture a device profiler trace of the enclosed block."""
     import jax
 
     jax.profiler.start_trace(log_dir)

@@ -1,16 +1,14 @@
-"""Live interactive viewer — the TPU-native answer to the reference's
-realtime SDL loop.
+"""Live interactive viewer — the accelerator-side answer to the
+reference's realtime SDL loop.
 
 The reference is an interactive SDL 1.2 app: a main loop polls the
 keyboard, mutates camera/light/toggle state, re-renders, and blits to a
 window (`raytracer/Source/raytracer.cpp:113-178` main + Update + Draw;
 keystate handling at 345-545; `rasteriser/Source/rasteriser.cpp:174-449`).
-This image has no display or SDL, so the TPU-native equivalent keeps the
-render loop on-device (one jitted function per RenderConfig, warm via the
-persistent compile cache) and serves the framebuffer over localhost HTTP:
-a browser <img> is the window, `fetch('/key?k=...')` is the keystate
-poll. At 256-500 px the warm render round-trip is ~0.1-0.3 s on one
-chip — the same order as the reference's own CPU frame times.
+Without a display or SDL, this viewer keeps the render loop on-device
+(one jitted function per RenderConfig, warm via the persistent compile
+cache) and serves the framebuffer over localhost HTTP: a browser <img>
+is the window, `fetch('/key?k=...')` is the keystate poll.
 
 Key map (reference semantics, same latching):
 
@@ -81,8 +79,8 @@ class ViewerApp:
         fn = self._jits.get(cfg)
         if fn is None:
             if cfg.mode == "soft":
-                # Key 0: the differentiable render, live (same fused
-                # Pallas kernels the training path uses).
+                # Key 0: the differentiable render, live (the same soft
+                # renderers the training path uses).
                 from raytpu.render.soft import rasterize_soft, raytrace_soft
 
                 soft = (raytrace_soft if self.renderer == "raytrace"

@@ -24,7 +24,6 @@ import pytest
 def _clean_env(monkeypatch):
     for k in ("RAYTPU_COORDINATOR", "JAX_COORDINATOR_ADDRESS",
               "RAYTPU_NUM_PROCESSES", "RAYTPU_PROCESS_ID",
-              "TPU_WORKER_HOSTNAMES", "MEGASCALE_COORDINATOR_ADDRESS",
               "SLURM_JOB_ID", "OMPI_COMM_WORLD_SIZE"):
         monkeypatch.delenv(k, raising=False)
 

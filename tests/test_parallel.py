@@ -2,7 +2,7 @@
 
 conftest forces JAX_PLATFORMS=cpu with
 --xla_force_host_platform_device_count=8 (SURVEY.md §4 item 4), so these
-tests exercise the real mesh/collective code paths without TPU hardware.
+tests exercise the real mesh/collective code paths without accelerators.
 """
 
 import dataclasses

@@ -17,6 +17,7 @@ from raytpu.core.stl import (
     REFERENCE_MODEL,
     load_reference_model,
     load_stl,
+    morton_order,
     parse_ascii_stl,
 )
 
@@ -89,6 +90,30 @@ def test_render_stl_scene():
     img = np.asarray(out.image)
     assert np.isfinite(img).all()
     assert (img.sum(-1) > 0).any()
+
+
+def test_morton_order_is_permutation_and_localizes():
+    """Random triangles in four well-separated clusters: the Morton sort
+    is a permutation and shrinks the summed bounding radii of 64-triangle
+    chunks against a shuffled order."""
+    rng = np.random.default_rng(0)
+    centers = np.array([(0, 0, 10), (40, 0, 14), (-40, 30, 18),
+                        (0, -35, 22)], np.float32)
+    a = (np.repeat(centers, 128, axis=0)
+         + rng.normal(scale=0.6, size=(512, 3))).astype(np.float32)
+    v0 = a
+    v1 = a + rng.normal(scale=0.3, size=a.shape).astype(np.float32)
+    v2 = a + rng.normal(scale=0.3, size=a.shape).astype(np.float32)
+    perm = morton_order(v0, v1, v2)
+    assert sorted(perm.tolist()) == list(range(512))
+
+    def total_radius(order):
+        verts = np.stack([v0[order], v1[order], v2[order]], axis=1)
+        chunks = verts.reshape(-1, 64 * 3, 3)
+        centre = chunks.mean(axis=1, keepdims=True)
+        return float(np.linalg.norm(chunks - centre, axis=-1).max(1).sum())
+
+    assert total_radius(perm) < total_radius(rng.permutation(512))
 
 
 def test_starfield():

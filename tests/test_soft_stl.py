@@ -1,11 +1,12 @@
-"""Soft-path validation at STL scale (VERDICT round-2 item 6).
+"""Soft-path validation on STL-loaded geometry.
 
-The soft kernels were developed on the 32-triangle Cornell box; these
-tests exercise them on the reference STL mesh (`enemy1.stl`,
-`rasteriser/Source/LoadSTL.cpp:17-81`): a finite-difference gradient
-check on an STL sub-scene through BOTH soft renderers, and a full
-9216-triangle (padded, multi-chunk) forward sanity check through the
-fused Pallas kernels.
+The soft renderers were developed on the 32-triangle Cornell box; these
+tests exercise them on a mesh that goes through the STL loader
+(`rasteriser/Source/LoadSTL.cpp:17-81` semantics: ASCII facets, scale
+-0.05): a seeded bumpy sphere that the tests write as an STL file
+themselves. They run a finite-difference gradient check through the soft
+rasterizer, a short vertex fit through BOTH soft renderers, and a
+9216-triangle (padded, multi-chunk) forward + gradient sanity check.
 """
 
 import dataclasses
@@ -15,8 +16,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raytpu.core.stl import load_reference_model
-from raytpu.core.types import Camera, Lights, RenderConfig, Scene
+from raytpu.core.stl import load_stl
+from raytpu.core.types import Camera, Lights, RenderConfig
 from raytpu.render.soft import rasterize_soft, raytrace_soft
 
 from test_gradients import _dir_deriv_check
@@ -24,35 +25,58 @@ from test_gradients import _dir_deriv_check
 SIZE = 24
 
 
-def _stl_sub_scene(n=64):
-    """A small contiguous slice of the STL mesh (still 'an STL scene':
-    real scanned geometry, irregular screen-space triangles)."""
-    full = load_reference_model()
-    sl = slice(0, n)
-    return Scene(v0=full.v0[sl], v1=full.v1[sl], v2=full.v2[sl],
-                 color=full.color[sl], active=full.active[sl])
+def _write_blob_stl(path, n_lat, n_lon, seed=0, radius=3.0, bump=0.15):
+    """Write a seeded bumpy lat-long sphere (2 * n_lon * (n_lat - 1)
+    triangles, in STL units) as an ASCII STL file."""
+    rng = np.random.default_rng(seed)
+    theta = np.linspace(0.0, np.pi, n_lat + 1)
+    phi = np.linspace(0.0, 2.0 * np.pi, n_lon + 1)[:-1]
+    r = radius * (1.0 + bump * rng.uniform(-1.0, 1.0, (n_lat + 1, n_lon)))
+    r[0, :] = r[0, 0]
+    r[-1, :] = r[-1, 0]
+    st, ct = np.sin(theta)[:, None], np.cos(theta)[:, None]
+    pts = np.stack([r * st * np.cos(phi), r * ct, r * st * np.sin(phi)],
+                   axis=-1)  # (n_lat + 1, n_lon, 3)
+    tris = []
+    for i in range(n_lat):
+        for j in range(n_lon):
+            k = (j + 1) % n_lon
+            a, b = pts[i, j], pts[i, k]
+            c, d = pts[i + 1, j], pts[i + 1, k]
+            if i > 0:
+                tris.append((a, b, c))
+            if i < n_lat - 1:
+                tris.append((b, d, c))
+    lines = ["solid blob"]
+    for tri in tris:
+        lines += [" facet normal 0 0 0", "  outer loop"]
+        lines += [f"   vertex {v[0]:.6f} {v[1]:.6f} {v[2]:.6f}" for v in tri]
+        lines += ["  endloop", " endfacet"]
+    lines.append("endsolid blob")
+    path.write_text("\n".join(lines) + "\n")
+    return str(path)
 
 
-def _setup(n=64):
-    scene = _stl_sub_scene(n)
-    # Framed on the slice's centroid (~(0.72, 0.05, 0.99)); slight yaw so
-    # no edge parks exactly on a pixel row (see test_gradients._setup).
-    cam = Camera.make((0.7207, 0.0527, 0.7641), yaw=0.003, focal=48.37)
+@pytest.fixture
+def blob(tmp_path):
+    """64-triangle STL scene (~0.15 radius after the loader's scale)."""
+    return load_stl(_write_blob_stl(tmp_path / "blob.stl", 5, 8))
+
+
+def _setup():
+    # Slight offset + yaw so no edge parks exactly on a pixel row (see
+    # test_gradients._setup).
+    cam = Camera.make((0.0137, 0.0071, -0.6213), yaw=0.003, focal=32.37)
     lights = Lights.single(capacity=1)
     rng = np.random.default_rng(11)
     w = jnp.asarray(rng.normal(size=(SIZE, SIZE, 3)), jnp.float32)
-    return scene, cam, lights, w
+    return cam, lights, w
 
 
-def test_soft_stl_raster_vertex_gradients_fd():
-    """fd check of soft rasterizer vertex gradients on STL geometry.
-
-    Threshold is 5e-2 (not the Cornell 1e-3): the STL slice's ~5e-3-sized
-    triangles leave the f32 central difference with ~1e-2 relative noise
-    at the eps where truncation error is balanced (verified by an eps
-    sweep; the error FALLS with eps, i.e. it is fd truncation, not a
-    wrong Jacobian)."""
-    scene, cam, lights, w = _setup()
+def test_soft_stl_raster_vertex_gradients_fd(blob):
+    """fd check of soft rasterizer vertex gradients on STL geometry."""
+    scene = blob
+    cam, lights, w = _setup()
     cfg = RenderConfig(width=SIZE, height=SIZE, mode="soft",
                        soft_edge_sharpness=10.0, soft_z_sharpness=20.0)
     img0 = rasterize_soft(scene, cam, lights, cfg)
@@ -64,37 +88,30 @@ def test_soft_stl_raster_vertex_gradients_fd():
         return rasterize_soft(s2, cam, lights, cfg)
 
     err = _dir_deriv_check(img_fn, (scene.v0, scene.v1, scene.v2), w,
-                           key=5, eps=1e-4)
+                           key=5, eps=1e-3)
     assert err < 5e-2, f"soft rasterize STL vertex grad rel err {err}"
 
 
 @pytest.mark.parametrize("renderer", ["rasterize", "raytrace"])
-def test_soft_stl_fit_converges(renderer):
+def test_soft_stl_fit_converges(blob, renderer):
     """Functional gradient quality on STL geometry: a vertex fit from a
-    perturbed mesh drives the image loss down >3x in 40 steps.
-
-    (A raw fd check is NOT run for the raytracer: silhouette triangles of
-    curved STL geometry are near-edge-on to primary rays, where
-    t = k0/denom genuinely has near-singular vertex derivatives — autodiff
-    is locally correct but central differences at any f32-viable eps
-    straddle the kink. What matters for the fit is descent, tested here.)
-    """
+    perturbed mesh drives the image loss down >3x in 40 steps."""
     import optax
 
-    scene, cam, lights, _ = _setup()
+    scene = blob
+    cam, lights, _ = _setup()
     cfg = RenderConfig(width=SIZE, height=SIZE, mode="soft",
                        soft_edge_sharpness=10.0, soft_z_sharpness=20.0)
     render = rasterize_soft if renderer == "rasterize" else raytrace_soft
     target = render(scene, cam, lights, cfg)
 
-    key = jax.random.PRNGKey(4)
-    keys = jax.random.split(key, 3)
-    noise = [0.002 * jax.random.normal(k, scene.v0.shape) for k in keys]
+    keys = jax.random.split(jax.random.PRNGKey(4), 3)
+    noise = [0.01 * jax.random.normal(k, scene.v0.shape) for k in keys]
     noisy = dataclasses.replace(
         scene, v0=scene.v0 + noise[0], v1=scene.v1 + noise[1],
         v2=scene.v2 + noise[2])
 
-    opt = optax.adam(5e-4)
+    opt = optax.adam(1e-3)
 
     @jax.jit
     def step(params, opt_state):
@@ -115,13 +132,13 @@ def test_soft_stl_fit_converges(renderer):
     assert float(loss) < float(l0) / 3, f"{float(l0)} -> {float(loss)}"
 
 
-def test_soft_stl_full_scene_forward():
-    """Full padded 9216-triangle STL through the fused soft kernels
-    (multi-chunk streaming at the scale the hard path benches): finite,
-    non-degenerate output, and gradients flow."""
-    scene = load_reference_model(pad_to=9216)
-    cam = Camera.rasterizer_default()
-    lights = Lights.single(capacity=1)
+def test_soft_stl_full_scene_forward(tmp_path):
+    """A 9024-triangle STL mesh padded to 9216 through the streaming soft
+    rasterizer (144 triangle chunks): finite, non-degenerate output, and
+    gradients flow."""
+    scene = load_stl(_write_blob_stl(tmp_path / "big.stl", 48, 96),
+                     pad_to=9216)
+    cam, lights, _ = _setup()
     cfg = RenderConfig(width=8, height=8, mode="soft",
                        soft_edge_sharpness=10.0, soft_z_sharpness=20.0)
 
@@ -130,7 +147,7 @@ def test_soft_stl_full_scene_forward():
         return jnp.sum(rasterize_soft(s2, cam, lights, cfg))
 
     val, g = jax.value_and_grad(loss)(scene.v0)
-    assert np.isfinite(float(val))
+    assert np.isfinite(float(val)) and float(val) > 0.0
     g = np.asarray(g)
     assert np.all(np.isfinite(g))
     assert np.abs(g).max() > 0.0
